@@ -1,13 +1,14 @@
-"""oatk-tpu: a TPU-native organelle genome assembly engine.
+"""oatk-tpu: an accelerator-native organelle genome assembly engine.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of c-zhou/oatk
+A from-scratch JAX/XLA rebuild of the capabilities of c-zhou/oatk
 (HiFi closed-syncmer sparse de Bruijn assembly -> HMM annotation ->
 organelle classification and circular path search).
 
-The compute-heavy stages (per-base syncmer scan, k-mer counting,
-wavefront edit distance) run as vectorized XLA/Pallas programs over
-batched, padded read tensors; the small-N graph stages (unitigging,
-cleaning, path search) run on host NumPy, fed by device reductions.
+The compute-heavy stages (per-base syncmer scan, k-mer counting) run as
+vectorized XLA programs over batched, padded read tensors on the GPU;
+the small-N graph stages (unitigging, cleaning, path search) and the
+banded edit-distance error correction run on host NumPy / native C,
+fed by device reductions.
 
 Reference parity targets c-zhou/oatk @ 2025-02-25 (see SURVEY.md).
 """
@@ -15,16 +16,13 @@ Reference parity targets c-zhou/oatk @ 2025-02-25 (see SURVEY.md).
 __version__ = "0.1.0"
 
 # 64-bit integers are required throughout (smer codes use up to 62 bits,
-# Murmur k-mer hashes are 64-bit).  XLA:TPU emulates u64 with 32-bit pairs.
+# Murmur k-mer hashes are 64-bit).
 # Floats stay explicitly f32/f64 per use site; enabling x64 here only
 # changes integer behavior for arrays we construct with explicit dtypes.
 import jax as _jax
 
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent XLA compilation cache: the syncmer kernels compile once per
-# (batch, length-bucket) shape (~1-2 min on TPU); caching across
-# processes makes repeat CLI invocations start in seconds.
 import os as _os
 
 # Disable numpy's MADV_HUGEPAGE on large allocations.  On kernels where
@@ -64,22 +62,19 @@ if _os.environ.get("OATK_TPU_MALLOC_REUSE", "1") == "1":
     except Exception:  # pragma: no cover - non-glibc libc
         pass
 
-_cache_dir = _os.environ.get("OATK_TPU_CACHE", "/tmp/oatk_tpu_jax_cache")
+# Persistent XLA compilation cache: the syncmer kernels compile once per
+# (batch, length-bucket) shape; caching across processes makes repeat
+# CLI invocations skip those compiles.  JAX_COMPILATION_CACHE_DIR, when
+# set, is read by JAX itself and nothing is set here; otherwise the cache
+# lives at a fixed path inside the checkout (the path is part of the
+# cache key, so it must not move between runs).
+CACHE_DIR_DEFAULT = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
 # CPU-only runs skip the cache: XLA:CPU persists AOT code whose machine
 # features may not match a later host (it warns about possible SIGILL),
 # and CPU compiles are cheap anyway.
-if "cpu" not in _os.environ.get("JAX_PLATFORMS", "").lower():
-    try:
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        # The cache key hashes the module AFTER strip-debuginfo, but a
-        # Pallas call embeds its Mosaic payload (locations included) in
-        # a custom_call backend_config the pass cannot reach.  With full
-        # tracebacks in locations, the CALLER chain (bench.py vs CLI vs
-        # pipeline, even unrelated line-number shifts) leaks into the
-        # payload and silently forks the cache key -- every entry point
-        # then pays the ~80 s first-compile of the same kernel.  Keep
-        # locations to the defining frame only.
-        _jax.config.update("jax_include_full_tracebacks_in_locations", False)
-    except Exception:  # pragma: no cover - older jax without the knobs
-        pass
+if "cpu" not in _os.environ.get("JAX_PLATFORMS", "").lower() and not _os.environ.get(
+    "JAX_COMPILATION_CACHE_DIR"
+):
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR_DEFAULT)

@@ -287,7 +287,7 @@ def _correct_reads_native(
     from .. import native
     from ..kernels import wavefront as _wf
 
-    # an explicit wavefront backend (pallas / numpy) must actually
+    # an explicit wavefront backend (numpy) must actually
     # drive EC: route through the Python loop + wf_ed_core
     cap = _wf.WF_BACKEND == "auto" and native.available()
     if gather is not None:

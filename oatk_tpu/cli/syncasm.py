@@ -12,18 +12,17 @@ from ._common import parse_data_size
 ENV_EPILOG = """\
 environment variables:
   OATK_TPU_THREADS       default native pool width when -t is not given
-  OATK_TPU_COUNT         counting path: auto|device|host [auto];
-                         device-resident counting is strictly better
-                         on PCIe-attached chips; 'auto' picks it above
-                         ~60 MB of input and the host sort below
-                         (round-trip-dominated small inputs)
-  OATK_TPU_IMPL          kernel impl: pallas|jnp|auto [auto]
+  OATK_TPU_COUNT         counting path: auto|device|host [auto]; 'auto'
+                         counts on the device above ~60 MB of input and
+                         with the host sort below
+  OATK_TPU_DEVICE_HOCO=1 upload raw reads and homopolymer-compress them
+                         on the device instead of on the host
   OATK_TPU_TIMEIT        print [T::] per-stage wall timings on stderr
   OATK_TPU_PROFILE=DIR   write a JAX device+host trace (TensorBoard)
-  OATK_TPU_CACHE=DIR     XLA compile cache dir [/tmp/oatk_tpu_jax_cache]
-  OATK_TPU_WF_BACKEND    wavefront DP backend: native|numpy|pallas
+  JAX_COMPILATION_CACHE_DIR  XLA compile cache dir [<checkout>/.jax_cache]
+  OATK_TPU_WF_BACKEND    wavefront DP backend: auto|numpy
   OATK_TPU_DEVICE_CONSENSUS  opt-in device run-length consensus
-                         (bit-exact by construction; host is faster)
+                         (bit-exact by construction)
   OATK_TPU_DEVICE_EM     EXPERIMENTAL: device coverage-EM loop; float
                          reduction order is NOT guaranteed to reproduce
                          the reference byte-for-byte -- outputs may
@@ -58,13 +57,27 @@ def build_parser():
         "--shards", type=int, default=0,
         help="shard extraction+counting over this many mesh devices [off]",
     )
-    p.add_argument("-v", "--verbose", type=int, default=0)
+    p.add_argument(
+        "-v", "--verbose", type=int, default=0,
+        help="verbosity; 3 also logs the JAX backend and device [0]",
+    )
     p.add_argument("--version", action="version", version="1.0")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.verbose >= 3 and not args.cpu:
+        import jax
+
+        from ..utils import log_info
+
+        devs = jax.devices()
+        log_info(
+            f"JAX backend {jax.default_backend()}, "
+            f"{len(devs)} x {devs[0].device_kind}",
+            func="main",
+        )
     res = syncasm(
         args.files,
         k=args.k,
@@ -78,6 +91,7 @@ def main(argv=None):
         do_unzip=args.unzip_round,
         max_data=args.D,
         out=args.o,
+        use_device=not args.cpu,
         verbose=args.verbose,
         shards=args.shards,
         threads=args.threads,

@@ -5,18 +5,18 @@ This is the distributed replacement for the reference's global qsort of
 128-bit (kmerhash<<64 | sid<<32 | idx<<1 | rev) keys
 (/root/reference/syncmer.c:1397-1451):
 
-- reads are sharded over the mesh axis; each chip extracts closed
-  syncmers from its read shard (the same kernel as the single-device
+- reads are sharded over the mesh axis; each device extracts closed
+  syncmers from its read shard (the same selection as the single-device
   path, so hashes/positions are bit-identical);
-- every occurrence is routed to its *owner* chip with an all_to_all,
-  ownership = top bits of the k-mer hash, so chips own ascending
+- every occurrence is routed to its *owner* device with an all_to_all,
+  ownership = top bits of the k-mer hash, so devices own ascending
   disjoint hash ranges;
-- owner chips append received (hash, low) pairs into a device-resident
+- owner devices append received (hash, low) pairs into a device-resident
   buffer across batches (the streaming analogue of the reference
   accumulating `s_mer_pos_v`);
-- finalize does ONE per-chip 2-key sort (lax.sort on (hash, low)):
+- finalize does ONE per-device 2-key sort (lax.sort on (hash, low)):
   because ownership ranges are monotone in hash, concatenating the
-  per-chip sorted runs in chip order reproduces the reference's total
+  per-device sorted runs in device order reproduces the reference's total
   128-bit sort order exactly -- global syncmer ids then follow from an
   exclusive scan of per-chip cluster counts, which is precisely what
   :func:`oatk_tpu.index.syncmer_db.build_db_from_sorted` computes over
@@ -62,12 +62,11 @@ def _dget(x) -> np.ndarray:
 
 @partial(
     jax.jit,
-    static_argnames=("w", "s", "max_out", "bucket_cap", "mesh", "impl"),
-    donate_argnums=(3, 4, 5, 6),
+    static_argnames=("w", "s", "max_out", "bucket_cap", "mesh"),
+    donate_argnums=(2, 3, 4, 5),
 )
 def _sharded_extract_route_step(
-    seq,  # [D, b, L] uint8: ASCII (impl='jnp') or hoco codes 0-5 (impl='pallas')
-    lens,  # [D, b] int32
+    codes,  # [D, b, L] uint8 hoco codes 0-3, 4 ambiguous, 5 padding
     sids,  # [D, b] int64 global read ids
     hbuf,  # [D, cap] uint64 carry: owned hashes (U64_MAX = empty)
     lbuf,  # [D, cap] uint64 carry: owned lows
@@ -78,9 +77,9 @@ def _sharded_extract_route_step(
     max_out: int,
     bucket_cap: int,
     mesh,
-    impl: str = "jnp",
 ):
-    """One sharded extract + route + append step (jit, collectives on ICI).
+    """One sharded extract + route + append step (jit; the collectives
+    run between the mesh devices).
 
     Returns (packed[D,3,max_out+1], hbuf, lbuf, nbuf, ndrop): packed is
     the per-shard single-transfer extraction result for host-side
@@ -90,27 +89,20 @@ def _sharded_extract_route_step(
     from jax import lax
     from jax.sharding import PartitionSpec as P
 
-    from ..kernels.syncmer import extract_hoco_batch_pallas, extract_syncmers_batch
+    from ..kernels.syncmer import extract_hoco_batch
 
     D = mesh.devices.size
     ax = mesh.axis_names[0]
     bits = _owner_bits(D)
     cap = hbuf.shape[1]
 
-    def step(seq_l, lens_l, sids_l, hb, lb, nb, dr):
-        seq_l, lens_l, sids_l = seq_l[0], lens_l[0], sids_l[0]
+    def step(codes_l, sids_l, hb, lb, nb, dr):
+        codes_l, sids_l = codes_l[0], sids_l[0]
         hb, lb = hb[0], lb[0]
         n0, dropped = nb[0], dr[0]
 
-        if impl == "pallas":
-            # per-chip VMEM selection kernel over host-precompressed hoco
-            # codes (the real-TPU production path; 'interpret' on CPU)
-            out = extract_hoco_batch_pallas(
-                seq_l, w, s, max_out,
-                interpret=jax.default_backend() != "tpu",
-            )
-        else:
-            out = extract_syncmers_batch(seq_l, lens_l, w, s, max_out, return_hoco=False)
+        # per-device selection over host-precompressed hoco codes
+        out = extract_hoco_batch(codes_l, w, s, max_out)
         khash = out["sel_khash"].astype(jnp.uint64)
         valid = out["valid"]
         sel_b = out["sel_b"]  # sorted ascending; == B for invalid lanes
@@ -178,13 +170,12 @@ def _sharded_extract_route_step(
             P(ax, None),
             P(ax, None),
             P(ax, None),
-            P(ax, None),
             P(ax),
             P(ax),
         ),
         out_specs=(P(ax, None, None), P(ax, None), P(ax, None), P(ax), P(ax)),
         check_vma=False,
-    )(seq, lens, sids, hbuf, lbuf, nbuf, ndrop)
+    )(codes, sids, hbuf, lbuf, nbuf, ndrop)
 
 
 @partial(jax.jit, static_argnames=("mesh",), donate_argnums=(0, 1))
@@ -221,7 +212,6 @@ class ShardedSyncmerCollector:
     s: int
     shard_cap: int  # per-shard data capacity (occurrences owned)
     bucket_cap: int  # per-(shard, dest) routing capacity per step
-    impl: str = "jnp"  # inner extractor: 'jnp' (ASCII) | 'pallas' (hoco codes)
     _state: tuple | None = field(default=None, repr=False)
     n_steps: int = 0
 
@@ -241,19 +231,19 @@ class ShardedSyncmerCollector:
         ndrop = jax.device_put(jnp.zeros(D, jnp.int32), sh1)
         self._state = (hbuf, lbuf, nbuf, ndrop)
 
-    def add_batch(self, seq: np.ndarray, lens: np.ndarray, sids: np.ndarray, max_out: int):
-        """Extract + route one read batch.  seq [B, L] with B divisible by
-        the mesh size (pad with lens=0 rows).  Returns the per-shard
-        packed extraction results [D, 3, max_out+1] (host np array)."""
+    def add_batch(self, codes: np.ndarray, sids: np.ndarray, max_out: int):
+        """Extract + route one read batch.  codes [B, L] hoco codes with
+        B divisible by the mesh size (pad with all-padding rows).  Returns
+        the per-shard packed extraction results [D, 3, max_out+1] (host
+        np array)."""
         if self._state is None:
             self._init_state()
         D = self.mesh.devices.size
-        B = seq.shape[0]
+        B = codes.shape[0]
         assert B % D == 0, "batch rows must be divisible by the mesh size"
         b = B // D
         packed, hbuf, lbuf, nbuf, ndrop = _sharded_extract_route_step(
-            seq.reshape(D, b, -1),
-            lens.reshape(D, b),
+            codes.reshape(D, b, -1),
             sids.reshape(D, b),
             *self._state,
             w=self.w,
@@ -261,7 +251,6 @@ class ShardedSyncmerCollector:
             max_out=max_out,
             bucket_cap=self.bucket_cap,
             mesh=self.mesh,
-            impl=self.impl,
         )
         self._state = (hbuf, lbuf, nbuf, ndrop)
         self.n_steps += 1
@@ -324,7 +313,7 @@ class ShardedSyncmerCollector:
 
 
 def _build_multiproc_impl(read_db, hs_dev, ls_dev, n_per_shard):
-    """Process-sharded host DB assembly (VERDICT r4 item 8).
+    """Process-sharded host DB assembly.
 
     The replicated build allgathers every shard's raw sorted keys
     (16 B/occurrence over DCN) and then EVERY process clusters the full
@@ -431,38 +420,28 @@ def load_and_extract_sharded(
     mesh,
     max_data: int = 0,
     batch_bases: int = 8 << 20,
-    impl: str = "auto",
 ):
-    """Multi-chip analogue of :func:`oatk_tpu.asm.reads.load_and_extract`:
-    reads stream through the mesh in length-bucketed batches, extraction
-    runs data-parallel per shard, occurrences are hash-routed to owner
-    shards, and the host assembles the per-read view from the per-shard
-    extraction results.
+    """Multi-device analogue of :func:`oatk_tpu.asm.reads.load_and_extract`:
+    reads stream through the mesh in length-bucketed batches of 1-byte
+    hoco codes, extraction runs data-parallel per shard, occurrences are
+    hash-routed to owner shards, and the host assembles the per-read
+    view from the per-shard extraction results.
 
     Returns (ReadDB, ShardedSyncmerCollector); call ``collector.build``
     after read stats to obtain the SyncmerDB (matching the reference's
     stage order: sr_db_stat runs on raw hashes before
     collect_syncmer_from_reads rewrites them, run_syncasm.c:88-103).
     """
-    import jax as _jax
-
     from .. import native as _native
     from ..asm.reads import ReadDB, _round_up, _unpack_packed
     from ..io.fastx import read_fastx, read_source_bytes
     from ..kernels.oracle import ReadSyncmers, hoco_compress_np
 
-    if impl == "auto":
-        import os as _os
-
-        impl = _os.environ.get(
-            "OATK_TPU_SHARDED_IMPL",
-            "pallas" if _jax.default_backend() == "tpu" else "jnp",
-        )
     D = mesh.devices.size
-    seq_of = None
-    if impl == "pallas" and _native.available() and max_data == 0:
-        # production parse path: threaded native FASTA/hoco (the python
-        # reader dominated large sharded runs)
+    res = None
+    if _native.available() and max_data == 0:
+        # threaded native FASTA/hoco parse (the python reader dominated
+        # large sharded runs)
         names_l, hoco = [], []
         total_bases = 0
         flat_parts = []  # (codes, rl, offs, ovf_pos, ovf_len) per file
@@ -480,21 +459,11 @@ def load_and_extract_sharded(
             names_l.extend(names)
             total_bases += int(rawlen.sum())
             flat_parts.append((codes, rlv, offs, ovf_p, ovf_l))
-        else:
-            res = True
-        if res is None:
-            flat_parts = None
-            records = read_fastx(paths, max_data)
-            names_l = [r.name for r in records]
-            hoco = [hoco_compress_np(r.seq) for r in records]
-            seq_of = [r.seq for r in records]
-            total_bases = sum(len(r.seq) for r in records)
-    else:
+    if res is None:
         flat_parts = None
         records = read_fastx(paths, max_data)
         names_l = [r.name for r in records]
         hoco = [hoco_compress_np(r.seq) for r in records]
-        seq_of = [r.seq for r in records]
         total_bases = sum(len(r.seq) for r in records)
     n_records = len(hoco)
     db = ReadDB(k=w, s=s)
@@ -539,7 +508,7 @@ def load_and_extract_sharded(
 
     buckets: dict[int, list[int]] = {}
     for i in range(n_records):
-        L = max(len(hoco[i][0]) if impl == "pallas" else len(seq_of[i]), w + 4)
+        L = max(len(hoco[i][0]), w + 4)
         Lp = max(512, 1 << int(np.ceil(np.log2(L))))
         buckets.setdefault(Lp, []).append(i)
 
@@ -561,32 +530,21 @@ def load_and_extract_sharded(
     if plan:
         collector = ShardedSyncmerCollector(
             mesh=mesh, w=w, s=s, shard_cap=shard_cap,
-            bucket_cap=max(p[3] for p in plan), impl=impl,
+            bucket_cap=max(p[3] for p in plan),
         )
     for Lp, chunk, B, max_out in plan:
-            lens = np.zeros(B, dtype=np.int32)
             sids = np.zeros(B, dtype=np.int64)
-            if impl == "pallas":
-                # hoco codes 0-3 (+4 ambiguous, 5 pad): 1 B/hoco base and
-                # no device-side recompression; the per-chip pallas VMEM
-                # kernel consumes these directly
-                seq = np.full((B, Lp), 5, dtype=np.uint8)
-                for bi, ri in enumerate(chunk):
-                    code, _, is_n = hoco[ri]
-                    row = code.astype(np.uint8, copy=True)
-                    if is_n.any():
-                        row[is_n] = 4
-                    seq[bi, : len(row)] = row
-                    lens[bi] = len(row)
-                    sids[bi] = ri
-            else:
-                seq = np.zeros((B, Lp), dtype=np.uint8)
-                for bi, ri in enumerate(chunk):
-                    sq = seq_of[ri]
-                    seq[bi, : len(sq)] = sq
-                    lens[bi] = len(sq)
-                    sids[bi] = ri
-            packed = collector.add_batch(seq, lens, sids, max_out)
+            # hoco codes 0-3 (+4 ambiguous, 5 pad): 1 B/hoco base and no
+            # device-side recompression
+            codes = np.full((B, Lp), 5, dtype=np.uint8)
+            for bi, ri in enumerate(chunk):
+                code, _, is_n = hoco[ri]
+                row = code.astype(np.uint8, copy=True)
+                if is_n.any():
+                    row[is_n] = 4
+                codes[bi, : len(row)] = row
+                sids[bi] = ri
+            packed = collector.add_batch(codes, sids, max_out)
 
             bpd = B // D
             for d in range(D):

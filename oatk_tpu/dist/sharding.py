@@ -1,17 +1,17 @@
-"""Multi-chip sharding: data-parallel syncmer extraction + hash-sharded
-k-mer count merge over a jax.sharding.Mesh.
+"""Multi-device sharding: data-parallel syncmer extraction + hash-sharded
+k-mer count merge over a 1-D jax.sharding.Mesh.
 
 The reference's parallelism is reads-only (pthreads, SURVEY.md 2.2);
-the TPU-native scale-out axes are
-  - reads   -> batch ('d') data parallelism (each chip scans a shard of
-               the padded read batch), and
+the device scale-out axes are
+  - reads   -> batch ('d') data parallelism (each device scans a shard
+               of the padded read batch), and
   - k-mer hash space -> ownership sharding: every extracted k-mer hash
-    is routed to its owner chip (top hash bits) with an all_to_all so
-    each chip builds the count table for its slice of hash space; a
+    is routed to its owner device (top hash bits) with an all_to_all so
+    each device builds the count table for its slice of hash space; a
     psum merges the global histogram used for the auto coverage cutoff.
 
-This is the framework's "training step" analogue: one fused jit program
-per step, collectives riding ICI.
+One fused jit program per step; the collectives run between the mesh
+devices (all to all, so the mesh follows the algorithm alone).
 """
 from __future__ import annotations
 

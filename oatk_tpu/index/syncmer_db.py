@@ -286,7 +286,7 @@ def collect_syncmer_db(read_db: ReadDB) -> SyncmerDB | None:
     if state is not None:
         read_db._devcount = None
         # evidence counters survive the handoff (validate_large prints
-        # cap/append/grow/invalidate for the at-scale BASELINE rows)
+        # cap/append/grow/invalidate for the at-scale runs)
         read_db._devcount_stats = state
         return state.build(read_db)
     hashes, lows, smers, base = flatten_occurrences(read_db)

@@ -182,10 +182,7 @@ def _wf_ed_core_native(st: WfState) -> bool:
 
 
 # wavefront core backend: 'auto' = native C with numpy fallback,
-# 'numpy' = host reference, 'pallas' = device kernel
-# (kernels/wavefront_pallas.py).  Settable via OATK_TPU_WF_BACKEND; the
-# EC DFS goes through wf_ed_core, so 'pallas' drives the whole error
-# correction through the device kernel (equivalence-tested).
+# 'numpy' = host reference.  Settable via OATK_TPU_WF_BACKEND.
 import os as _os
 
 WF_BACKEND = _os.environ.get("OATK_TPU_WF_BACKEND", "auto")
@@ -194,13 +191,6 @@ WF_BACKEND = _os.environ.get("OATK_TPU_WF_BACKEND", "auto")
 def wf_ed_core(st: WfState):
     """Run wavefront steps until an end is reached or the band is
     exceeded; resumes from the current state (stepwise restart)."""
-    if WF_BACKEND == "pallas" and st.tb is None:
-        import jax as _jax
-
-        from .wavefront_pallas import wf_ed_core_pallas
-
-        if wf_ed_core_pallas(st, interpret=_jax.default_backend() != "tpu"):
-            return
     if WF_BACKEND != "numpy" and st.tb is None and _wf_ed_core_native(st):
         return
     t_end = q_end = -1

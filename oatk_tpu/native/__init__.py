@@ -1,8 +1,8 @@
 """Native (C) runtime components with lazy build + Python fallback.
 
-The reference's runtime is C (kseq parsing, pthread pools); the
-TPU-native equivalent keeps compute in XLA/Pallas but moves the
-host-side data plumbing (FASTA/FASTQ parse + homopolymer compression +
+The reference's runtime is C (kseq parsing, pthread pools); this
+rebuild keeps device compute in XLA but moves the host-side data
+plumbing (FASTA/FASTQ parse + homopolymer compression +
 2-bit packing) into a small C library, built on demand with the system
 compiler and loaded via ctypes.
 """
@@ -38,7 +38,9 @@ def _load():
         src_mtime = max(os.path.getmtime(s) for s in _SRCS)
         if not os.path.exists(_SO) or os.path.getmtime(_SO) < src_mtime:
             cc = os.environ.get("CC", "cc")
-            tmp = _SO + ".tmp"
+            # per-process temp name: concurrent first uses (test
+            # workers) each build and atomically publish the library
+            tmp = f"{_SO}.{os.getpid()}.tmp"
             subprocess.run(
                 [cc, "-O3", "-shared", "-fPIC", "-pthread", *_SRCS, "-o", tmp],
                 check=True,

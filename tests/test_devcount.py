@@ -2,8 +2,7 @@
 assignment must reproduce the host lexsort DB exactly -- ids, coverage,
 position lists, head hashes/smers, and the per-read k_mer rewrite --
 including the multi-segment loader flow, the overflow-regrow path, and
-the discarded-attempt invalidation.  Runs in Pallas interpret mode on
-CPU (the devcount jits themselves are plain jnp)."""
+the discarded-attempt invalidation."""
 import numpy as np
 import pytest
 
@@ -32,7 +31,7 @@ def _dev_db(paths):
     from oatk_tpu.asm import reads as R
     from oatk_tpu.index.syncmer_db import collect_syncmer_db
 
-    db = R.load_and_extract(paths, W, S, impl="pallas", device_count=True)
+    db = R.load_and_extract(paths, W, S, device_count=True)
     assert db is not None
     assert getattr(db, "_devcount", None) is not None
     assert all(r.k_mer is None for r in db.reads)  # khash never fetched
@@ -228,7 +227,7 @@ def test_devcount_buffer_growth(tmp_path, monkeypatch, reads):
     a donated-pad grow jit): start from a tiny quantum with the
     file-size pre-hint disabled so every few chunks overflow the carry
     buffers.  The grown-buffer DB must equal the host lexsort DB
-    exactly (VERDICT r3 item 1: growth was untested at any scale)."""
+    exactly."""
     from oatk_tpu import native
     from oatk_tpu.asm import reads as R
     from oatk_tpu.index import devcount
@@ -259,7 +258,7 @@ def test_devcount_buffer_growth(tmp_path, monkeypatch, reads):
     monkeypatch.setattr(devcount, "_cap_quantum", tiny_quantum)
     monkeypatch.setattr(devcount, "DevCountState", NoHintState)
 
-    db = R.load_and_extract([str(fa)], W, S, impl="pallas", device_count=True)
+    db = R.load_and_extract([str(fa)], W, S, device_count=True)
     assert db is not None
     dc = db._devcount
     from oatk_tpu.index.syncmer_db import collect_syncmer_db
@@ -328,5 +327,5 @@ def test_devcount_mixed_format_discard(tmp_path, monkeypatch, reads):
         f.write(f"@q0\n{reads[12]}\n+\n{'I' * len(reads[12])}\n")
     monkeypatch.setattr(R, "_SEG_BYTES", 2048)
     assert R.load_and_extract(
-        [str(mixed)], W, S, impl="pallas", device_count=True
+        [str(mixed)], W, S, device_count=True
     ) is None

@@ -178,7 +178,7 @@ def test_mixed_degenerate_devcount_path(tmp_path, rng, monkeypatch):
 
     if not native.available():
         pytest.skip("native library unavailable")
-    monkeypatch.setenv("OATK_TPU_IMPL", "pallas")
+    monkeypatch.setenv("OATK_TPU_COUNT", "device")
     g = random_genome(rng, 8000)
     src = g + g
     parts = [">deg0\nNNNNN\n>deg1\nAAAA\n"]

@@ -2,7 +2,7 @@
 pipelined multi-segment flow must reproduce the host oracle exactly
 (positions, strands, s-mers, Murmur hashes, hoco streams), including
 FASTQ input, gz input, multi-file sid continuity, and the -D capped
-sequential flow.  Runs in Pallas interpret mode on CPU."""
+sequential flow."""
 import gzip
 
 import numpy as np
@@ -55,7 +55,7 @@ def test_pipelined_loader_equals_oracle(tmp_path, monkeypatch, reads):
     fa = tmp_path / "r.fa"
     _write_fa(str(fa), reads)
     monkeypatch.setattr(R, "_SEG_BYTES", 4096)  # force many segments
-    db = R.load_and_extract([str(fa)], W, S, impl="pallas")
+    db = R.load_and_extract([str(fa)], W, S)
     assert db is not None
     _assert_same(db, _oracle_db([str(fa)]))
     # loader carries the whole-run hoco streams; the contract is
@@ -69,6 +69,38 @@ def test_pipelined_loader_equals_oracle(tmp_path, monkeypatch, reads):
         prev_end = o0 + r.hoco_l
         assert np.array_equal(db.hoco_flat[o0 : o0 + r.hoco_l], r.hoco_code)
         assert np.array_equal(db.rl_flat[o0 : o0 + r.hoco_l], r.ho_rl)
+
+
+def test_loader_chunks_unpack_to_every_read(tmp_path, monkeypatch, reads):
+    """loader_chunks cuts the pipelined loader's blobs; _unpack_blob
+    turns each back into one row per read: the read's hoco codes, then
+    padding code 5."""
+    import jax.numpy as jnp
+
+    from oatk_tpu import native
+    from oatk_tpu.asm import reads as R
+    from oatk_tpu.kernels.syncmer import _unpack_blob
+
+    if not native.available():
+        pytest.skip("native library unavailable")
+    fa = tmp_path / "r.fa"
+    _write_fa(str(fa), reads)
+    monkeypatch.setattr(R, "_SEG_BYTES", 4096)  # force many segments
+    ref = _oracle_db([str(fa)])
+    want = sorted(r.hoco_code.tobytes() for r in ref.reads)
+    got = []
+    chunks = list(R.loader_chunks(fa.read_bytes(), W, S))
+    assert len(chunks) > 1
+    for B, Lp, max_out, n_cap, blob in chunks:
+        assert max_out % 1024 == 0 and len(blob) == B * Lp // 4 + 4 * B + 4 * n_cap
+        codes, sel_codes = (np.asarray(a) for a in _unpack_blob(jnp.asarray(blob), B, Lp, n_cap))
+        hl = np.frombuffer(blob[B * Lp // 4 : B * Lp // 4 + 4 * B].tobytes(), np.int32)
+        for row, n in zip(codes, hl):
+            if n:
+                assert (row[n:] == 5).all()
+                got.append(row[:n].tobytes())
+        assert (sel_codes[codes == 5] == 5).all()
+    assert sorted(got) == want
 
 
 def test_pipelined_loader_fastq_gz_multifile(tmp_path, monkeypatch, reads):
@@ -87,7 +119,7 @@ def test_pipelined_loader_fastq_gz_multifile(tmp_path, monkeypatch, reads):
             f.write(f">g{i}\n{r}\n")
     paths = [str(fq), str(fgz)]
     monkeypatch.setattr(R, "_SEG_BYTES", 2048)
-    db = R.load_and_extract(paths, W, S, impl="pallas")
+    db = R.load_and_extract(paths, W, S)
     assert db is not None
     _assert_same(db, _oracle_db(paths))
 
@@ -101,7 +133,7 @@ def test_capped_loader_equals_oracle(tmp_path, reads):
     fa = tmp_path / "r.fa"
     _write_fa(str(fa), reads)
     cap = sum(len(r) for r in reads) // 2
-    db = R.load_and_extract([str(fa)], W, S, max_data=cap, impl="pallas")
+    db = R.load_and_extract([str(fa)], W, S, max_data=cap)
     assert db is not None
     ref = _oracle_db([str(fa)], max_data=cap)
     # reference cap semantics: stop once cumulative raw length >= cap
@@ -133,7 +165,7 @@ def test_overflow_retry(tmp_path, monkeypatch):
         return real_round_up(x, m)
 
     monkeypatch.setattr(R, "_round_up", tiny_round_up)
-    db = R.load_and_extract([str(fa)], W, S, impl="pallas")
+    db = R.load_and_extract([str(fa)], W, S)
     monkeypatch.undo()
     assert db is not None
     _assert_same(db, _oracle_db([str(fa)]))
@@ -159,7 +191,7 @@ def test_optimistic_guard_fallback(tmp_path, monkeypatch, reads):
         for i, r in enumerate(reads[15:30]):
             f.write(f"@q{i}\n{r}\n+\n{'I' * len(r)}\n")
     monkeypatch.setattr(R, "_SEG_BYTES", 2048)  # force the split attempt
-    assert R.load_and_extract([str(mixed)], W, S, impl="pallas") is None
+    assert R.load_and_extract([str(mixed)], W, S) is None
     db = load_reads([str(mixed)], W, S, use_device=False)
     _assert_same(db, _oracle_db([str(mixed)]))
 
@@ -204,7 +236,7 @@ def test_compaction_order_hp_rich_many_segments(tmp_path, monkeypatch):
     fa = tmp_path / "hp.fa"
     _write_fa(str(fa), reads)
     monkeypatch.setattr(R, "_SEG_BYTES", 24 * 1024)
-    db = R.load_and_extract([str(fa)], W, S, impl="pallas")
+    db = R.load_and_extract([str(fa)], W, S)
     assert db is not None
     _assert_same(db, _oracle_db([str(fa)]))
     prev_end = 0
@@ -220,7 +252,9 @@ def test_device_hoco_parity(tmp_path, monkeypatch, reads):
     """OATK_TPU_DEVICE_HOCO=1: raw-ASCII upload + on-device hoco must
     reproduce the host-hoco oracle exactly -- syncmers AND the fetched
     hoco arrays (codes, run lengths, N flags)."""
-    rng = np.random.default_rng(7)
+    from oatk_tpu.asm import reads as R
+    from oatk_tpu.asm.pipeline import load_reads
+
     rd = list(reads)
     # sprinkle Ns: the device hoco phase must reproduce the N handling
     r0 = list(rd[0])
@@ -230,10 +264,33 @@ def test_device_hoco_parity(tmp_path, monkeypatch, reads):
     fa = tmp_path / "dh.fa"
     _write_fa(str(fa), rd)
     monkeypatch.setenv("OATK_TPU_DEVICE_HOCO", "1")
-    from oatk_tpu.asm.reads import extract_all_syncmers, load_and_extract
-    from oatk_tpu.io.fastx import read_fastx
-
-    assert load_and_extract([str(fa)], W, S) is None  # knob reroutes
-    db = extract_all_syncmers(read_fastx([str(fa)]), W, S, impl="pallas")
+    routed = []
+    real = R._extract_device_hoco
+    monkeypatch.setattr(
+        R, "_extract_device_hoco", lambda *a, **k: routed.append(1) or real(*a, **k)
+    )
+    db = load_reads([str(fa)], W, S)
+    assert routed, "the knob must route through the device-hoco extractor"
     monkeypatch.delenv("OATK_TPU_DEVICE_HOCO")
+    _assert_same(db, _oracle_db([str(fa)]))
+
+
+def test_load_reads_takes_fused_loader_on_any_backend(tmp_path, monkeypatch, reads):
+    """load_reads runs the fused native loader + device selection on
+    whatever backend JAX has (the CPU here): the Python-reader fallback
+    must not be reached, and the result equals the oracle."""
+    from oatk_tpu import native
+    from oatk_tpu.asm import pipeline as P
+
+    if not native.available():
+        pytest.skip("native library unavailable")
+    fa = tmp_path / "r.fa"
+    _write_fa(str(fa), reads)
+
+    def no_fallback(*a, **k):
+        raise AssertionError("load_reads fell back to read_fastx")
+
+    monkeypatch.setattr(P, "read_fastx", no_fallback)
+    db = P.load_reads([str(fa)], W, S)
+    monkeypatch.undo()
     _assert_same(db, _oracle_db([str(fa)]))

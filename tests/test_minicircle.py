@@ -25,7 +25,7 @@ def _rolling_circle_reads(rng, glen=4000, n=60):
 
 
 def test_oatk_minicircle_parity_vs_reference(tmp_path, rng):
-    """VERDICT round-1 item 7: the reference oatk -M run with a stub
+    """The reference oatk -M run with a stub
     nhmmscan on identical reads must produce byte-identical annotation
     and .mini.{gfa,bed,ctg.fasta,ctg.bed} outputs."""
     genome, reads = _rolling_circle_reads(rng)

@@ -1,4 +1,4 @@
-"""numt/nupt + heteroplasmy parity stress (VERDICT r3 item 6).
+"""numt/nupt + heteroplasmy parity stress.
 
 Two read-data structures the organelle classifier stack exists for:
 

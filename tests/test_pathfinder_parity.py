@@ -135,7 +135,7 @@ def test_pathfinder_mito_and_pltd(tmp_path, rng):
 
 def test_pathfinder_from_ec_unzip_assembly(tmp_path):
     """Pathfinder parity on a GFA produced by an EC + 3-round-unzip
-    assembly with sequencing errors (VERDICT round-1 item 5)."""
+    assembly with sequencing errors."""
     rng = np.random.default_rng(21)  # seed chosen so the erroneous assembly is non-empty
     a = random_genome(rng, 8000)
     r = random_genome(rng, 2400)

@@ -47,7 +47,7 @@ def test_device_em_and_consensus_optins_parity(tmp_path, monkeypatch, capsys):
     lax.while_loop dispatch; OATK_TPU_DEVICE_CONSENSUS: run-length
     consensus reductions on device, which also forces the per-unitig
     route past the batched native emitter) must reproduce the reference
-    GFAs byte-for-byte (BASELINE.md round-3 trade notes).  DEVICE_EM is
+    GFAs byte-for-byte.  DEVICE_EM is
     quarantined as experimental (its float reduction order is not
     parity-guaranteed by construction) -- the run must say so."""
     rng = np.random.default_rng(62)

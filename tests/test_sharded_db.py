@@ -87,9 +87,9 @@ def test_sharded_syncasm_gfa_parity(tmp_path, n_shards):
 
 
 def test_sharded_pallas_inner_matches_host(tmp_path):
-    """The TPU-production inner extractor (per-chip pallas VMEM kernel
-    over host-precompressed hoco codes, interpret mode here) must yield
-    the same DB as the host path."""
+    """The sharded inner extractor (per-device selection over
+    host-precompressed hoco codes) must yield the same DB as the
+    single-device path."""
     fa = _write_dataset(tmp_path, seed=42, glen=15000, cov=8, rl=2000)
 
     from oatk_tpu.asm.pipeline import load_reads
@@ -99,7 +99,7 @@ def test_sharded_pallas_inner_matches_host(tmp_path):
 
     db1 = load_reads([str(fa)], 151, 13, 0, True)
     scm1 = collect_syncmer_db(db1)
-    db2, coll = load_and_extract_sharded([str(fa)], 151, 13, make_mesh(8), impl="pallas")
+    db2, coll = load_and_extract_sharded([str(fa)], 151, 13, make_mesh(8))
     scm2 = coll.build(db2)
     assert scm1.n == scm2.n
     assert np.array_equal(scm1.h, scm2.h)

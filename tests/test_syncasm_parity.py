@@ -69,7 +69,7 @@ def test_utg_gfa_parity_no_ec(tmp_path, seed, glen):
     ids=["ec1-unzip0", "ec0-unzip3", "ec1-unzip3"],
 )
 def test_utg_gfa_parity_ec_unzip(tmp_path, seed, ec, unzip):
-    """EC/unzip-on parity in the fast suite (VERDICT round-1 item 5):
+    """EC/unzip-on parity in the fast suite:
     exercises asm/ec.py (C13) and asm/unzip.py (C15) against the
     reference with sequencing errors so EC has real work to do."""
     rng = np.random.default_rng(seed)

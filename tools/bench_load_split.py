@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Focused load_extract instrumentation harness (VERDICT r3 item 2).
+"""Focused load_extract instrumentation harness.
 
 Runs ONLY the loader + device counting on the 110 Mbp bench dataset,
 N warm repetitions, and prints per-run sub-splits:
@@ -10,8 +10,8 @@ N warm repetitions, and prints per-run sub-splits:
 - collect_db (device finalize sort + id fetch + host DB assembly).
 
 Usage: python tools/bench_load_split.py [n_runs] [dataset.fa]
-(defaults: 5 runs, /tmp/oatk_bench_110.fa -- generate it by running
-bench.py once).  Requires the real TPU env.
+(defaults: 5 runs, bench_data/reads_110.fa -- generate it by running
+bench.py once).
 """
 from __future__ import annotations
 
@@ -26,7 +26,9 @@ sys.path.insert(0, REPO)
 
 def main():
     n_runs = int(sys.argv[1]) if len(sys.argv) > 1 else 5
-    data = sys.argv[2] if len(sys.argv) > 2 else "/tmp/oatk_bench_110.fa"
+    data = sys.argv[2] if len(sys.argv) > 2 else os.path.join(
+        REPO, "bench_data", "reads_110.fa"
+    )
     if not os.path.exists(data):
         sys.exit(f"dataset {data} missing; run bench.py once to generate it")
 
@@ -44,7 +46,7 @@ def main():
     t0 = time.time()
     db = load_and_extract([data], 1001, 31, device_count=True)
     if db is None:
-        sys.exit("fused loader unavailable (needs TPU backend + native lib)")
+        sys.exit("fused loader unavailable (needs the native library)")
     collect_syncmer_db(db)
     print(f"warm run: {time.time() - t0:.2f} s", flush=True)
 
